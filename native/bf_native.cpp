@@ -1,6 +1,6 @@
-// Native runtime components for better_flow_tpu.
+// Native runtime components for better_flow.
 //
-// The reference is a C++ pipeline end to end; here the TPU compute path is
+// The reference is a C++ pipeline end to end; here the device compute path is
 // JAX/XLA and the native layer covers what genuinely benefits from C++ on
 // the host side: bulk text I/O of event recordings (the reference's
 // iostream parsing, event_file.h:34-176, is its I/O bottleneck) and the
@@ -201,10 +201,9 @@ int64_t bf_ring_size(RingBuffer* r) { return bf_ring_fix_span(r); }
 // offline scan (runtime/scan_pipeline.prepare_recording).  Produces the
 // SAME layout as the numpy materialize_slices(band_pad=True) + compact u16
 // encoding — verified element-exact by tests/test_native_prep.py — via one
-// counting sort per slice keyed by (row-band, column), i.e. the ordering of
-// ops/pallas/fused_model.sort_key_blocks, with every band padded to a
-// kernel-CHUNK boundary.  The numpy path costs ~24 s on a 6M-event
-// recording (a [300, 63k] fancy scatter); this pass is ~0.2 s.
+// counting sort per slice keyed by (row-band, column), with every band
+// padded to a CHUNK boundary (runtime/scan_pipeline.CHUNK).  The numpy
+// path is a [S, capp] fancy scatter; this pass replaces it.
 //
 // Outputs are [S, capp] row-major, pre-sized by the caller:
 //   xs16/ys16: event coordinates (u16), 0 in padding slots

@@ -1,7 +1,7 @@
 """Event-at-a-time numpy transcription of the reference C++ semantics.
 
 This is the test oracle: deliberately slow, loopy, and structured exactly
-like the C++ (better_flow_core), so the vectorized/jitted TPU implementations
+like the C++ (better_flow_core), so the vectorized/jitted implementations
 can be checked against it on small inputs.  Citations point into
 /root/reference.  Not used by the framework itself.
 """

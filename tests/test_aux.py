@@ -5,17 +5,17 @@ import os
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models.clustering import cluster_events, label_components, merge_clusters
-from better_flow_tpu.profiling import Spans, realtime_factor
-from better_flow_tpu.runtime.checkpoint import load_checkpoint, save_checkpoint
-from better_flow_tpu.runtime.dvs_flow import DVSFlow
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models.clustering import cluster_events, label_components, merge_clusters
+from better_flow.profiling import Spans, realtime_factor
+from better_flow.runtime.checkpoint import load_checkpoint, save_checkpoint
+from better_flow.runtime.dvs_flow import DVSFlow
 
 import jax.numpy as jnp
 
@@ -111,8 +111,8 @@ class TestProfiling:
 
 class TestNativeIO:
     def test_native_matches_python(self, tmp_path):
-        from better_flow_tpu.io import native
-        from better_flow_tpu.io.event_file import _load_columns, write_events
+        from better_flow.io import native
+        from better_flow.io.event_file import _load_columns, write_events
 
         if native.get_lib() is None:
             pytest.skip("native lib not built")
@@ -128,7 +128,7 @@ class TestNativeIO:
         np.testing.assert_allclose(nat["t_ns"], (1e9 * t).astype(np.int64))
 
     def test_native_writer_format(self, tmp_path):
-        from better_flow_tpu.io import native
+        from better_flow.io import native
 
         if native.get_lib() is None:
             pytest.skip("native lib not built")

@@ -15,8 +15,8 @@ Two properties the global 4-parameter model cannot deliver:
 import numpy as np
 import pytest
 
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models.local_flow import flow_field_grid
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models.local_flow import flow_field_grid
 
 DAVIS_X, DAVIS_Y = 346, 260
 

@@ -5,17 +5,17 @@ import numpy as np
 import jax
 import pytest
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
     low_latency_config,
 )
-from better_flow_tpu.core.model import MotionModel
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
-from better_flow_tpu.parallel.spatial import bucket_events, process_slice_tiled
+from better_flow.core.model import MotionModel
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.scan_pipeline import compensate_recording_scan
+from better_flow.parallel.spatial import bucket_events, process_slice_tiled
 
 
 def test_davis_346x260():

@@ -4,18 +4,18 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from better_flow_tpu.config import SensorConfig
-from better_flow_tpu.core.events import make_slice
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models import global_flow as gf
-from better_flow_tpu.ops.gradient import masked_scharr
-from better_flow_tpu.ops.reductions import (
+from better_flow.config import SensorConfig
+from better_flow.core.events import make_slice
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models import global_flow as gf
+from better_flow.ops.gradient import masked_scharr
+from better_flow.ops.reductions import (
     center_of_mass,
     model_compute,
     model_compute_sampled,
 )
-from better_flow_tpu.ops.time_image import time_image
-from better_flow_tpu.viz.debug_images import (
+from better_flow.ops.time_image import time_image
+from better_flow.viz.debug_images import (
     gradient_img,
     gradient_img_color,
     lr_gradient_img_color,

@@ -9,7 +9,7 @@ recovers the flow through the noise.
 
 import numpy as np
 
-from better_flow_tpu.io.dvs_sim import dvs_events
+from better_flow.io.dvs_sim import dvs_events
 
 
 def test_stream_statistics():
@@ -48,8 +48,8 @@ def test_stream_statistics():
 def test_pipeline_recovers_flow_through_noise():
     """The scan pipeline on a noisy, bursty stream still recovers the global
     motion on ground-truth (signal) events."""
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import PipelineConfig
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     d = dvs_events(120_000, duration_s=0.4, vx=60, vy=-40, rot=0.0,
                    div=0.0, seed=3)

@@ -13,7 +13,7 @@ from jax import enable_x64
 
 
 def _recording(n=60_000, **scene):
-    from better_flow_tpu.io.synthetic import synthetic_events
+    from better_flow.io.synthetic import synthetic_events
 
     return synthetic_events(
         n, duration_s=0.4, res_x=180, res_y=240, n_points=400, seed=21,
@@ -27,7 +27,7 @@ def test_kahan_f32_matches_f64_sum():
     uncompensated f32 sum drifts visibly."""
     import jax.numpy as jnp
 
-    from better_flow_tpu.core.model import MotionModel
+    from better_flow.core.model import MotionModel
 
     rng = np.random.default_rng(0)
     deltas = (rng.standard_normal(4000) * 1e-4).astype(np.float32)
@@ -57,8 +57,8 @@ def test_scan_f64_totals_matches_f32():
     by sub-ulp accumulation residue until a chaotic bifurcation)."""
     import jax.numpy as jnp
 
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import PipelineConfig
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     d = _recording(vx=60.0, vy=-40.0, rot=0.1, div=0.03)
     cfg32 = PipelineConfig()
@@ -77,8 +77,8 @@ def test_scan_f64_totals_matches_f32():
 
 
 def test_f64_totals_requires_x64():
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import PipelineConfig
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     d = _recording(n=5_000)
     with pytest.raises(ValueError, match="x64"):

@@ -6,14 +6,14 @@ must land on the same converged warp, in no more iterations."""
 
 import numpy as np
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
 
 def _cfg(sched, **opt):
@@ -117,7 +117,7 @@ def test_fast_offbench_noisy_stream():
     bounds it at 1.2x on this seed so regressions beyond the documented
     band fail.  fast_accurate() must hold reference-equal accuracy on the
     same stream.  Neither may blow the iteration budget."""
-    from better_flow_tpu.io.dvs_sim import dvs_events
+    from better_flow.io.dvs_sim import dvs_events
 
     d = dvs_events(120_000, duration_s=0.25, res_x=180, res_y=240,
                    vx=45.0, vy=-30.0, rot=0.1, div=0.04, seed=31)
@@ -176,82 +176,43 @@ def test_fast_rotdiv_margin_canary():
         f"factor-6 rotdiv behavior collapsed: ratio {a_6 / a_r:.3f}")
 
 
-def test_megastep_fast_matches_composed_slice():
-    """The secant schedule exists in two hand-mirrored copies: the JAX
-    _fast_loop (models/global_flow.py) and the in-kernel _model_update_phase
-    (ops/pallas/fused_model.py) — the latter is what bench.py measures.
-    Compare them on the SAME Pallas splat (use_megastep switch, interpret
-    mode on CPU, hi+lo time pair) on one slice, unseeded and with an
-    explicit secant-slope seed.  The two compiled programs agree only to
-    ulp-level (XLA contracts the rot/div gradient expressions
-    context-dependently — see _run_fused's docstring), so the gates are
-    iteration-count equality plus tight total tolerances, not bitwise."""
-    import jax.numpy as jnp
-
-    from better_flow_tpu.core.events import make_slice
-    from better_flow_tpu.core.model import MotionModel
-    from better_flow_tpu.models.global_flow import process_slice
-
-    d = synthetic_events(3000, duration_s=0.1, res_x=24, res_y=32,
-                         n_points=60, seed=3, vx=8.0, vy=-5.0, rot=0.05,
-                         div=0.02)
-    ev = make_slice(d["x"], d["y"], d["t_ns"].astype(np.float64),
-                    capacity=3072)
-    mk = lambda mega, **kw: OptimizerConfig.fast(
-        scale=3, min_events=500, scatter_mode="pallas",
-        splat_time_lo=True, use_megastep=mega, **kw)
-    seeds = [None,
-             jnp.asarray([-2e3, -2e3, -40.0, -40.0, 0, 0, 0, 0], jnp.float32)]
-    for seed in seeds:
-        rc = process_slice(ev, MotionModel.zero(), mk(False),
-                           SensorConfig(24, 32), seed=seed)
-        rm = process_slice(ev, MotionModel.zero(), mk(True),
-                           SensorConfig(24, 32), seed=seed)
-        assert int(rm.iters) == int(rc.iters), (int(rm.iters), int(rc.iters))
-        for f in ("total_dx", "total_dy", "total_rot", "total_div"):
-            a = float(getattr(rc.model, f))
-            b = float(getattr(rm.model, f))
-            assert abs(a - b) <= 1e-4 * max(1.0, abs(a)), (f, a, b)
-        np.testing.assert_allclose(np.asarray(rm.u), np.asarray(rc.u),
-                                   rtol=1e-3, atol=1e-2)
-
-
 def test_predicted_exit_parity_and_effect():
-    """The model-validated one-step-ahead exit (exit_predict_cap,
-    round-5) exists in both schedule copies — the JAX _fast_loop and the
-    in-kernel _model_update_phase.  Pin (a) iteration-count equality
-    between the copies on the same Pallas splat with the knob ON, and
-    (b) that the knob only ever REDUCES per-slice iterations vs the
-    plain fast exit (it adds an exit path, never blocks one)."""
+    """The model-validated one-step-ahead exit (exit_predict_cap) only
+    adds an exit path to _fast_loop.  Pin (a) on one slice, unseeded and
+    with an explicit secant-slope seed: the knob never needs more
+    iterations than the plain fast exit, and where it exits early the
+    totals stay within a few tolerance steps of the plain exit's; and (b)
+    over a recording, the knob only ever REDUCES iterations."""
     import jax.numpy as jnp
 
-    from better_flow_tpu.core.events import make_slice
-    from better_flow_tpu.core.model import MotionModel
-    from better_flow_tpu.models.global_flow import process_slice
+    from better_flow.core.events import make_slice
+    from better_flow.core.model import MotionModel
+    from better_flow.models.global_flow import process_slice
 
     d = synthetic_events(3000, duration_s=0.1, res_x=24, res_y=32,
                          n_points=60, seed=3, vx=8.0, vy=-5.0, rot=0.05,
                          div=0.02)
     ev = make_slice(d["x"], d["y"], d["t_ns"].astype(np.float64),
                     capacity=3072)
-    mk = lambda mega, **kw: OptimizerConfig.fast(
-        scale=3, min_events=500, scatter_mode="pallas",
-        splat_time_lo=True, use_megastep=mega, exit_predict_cap=4.0,
-        **kw)
+    mk = lambda cap: OptimizerConfig.fast(scale=3, min_events=500,
+                                          exit_predict_cap=cap)
     seeds = [None,
              jnp.asarray([-2e3, -2e3, -40.0, -40.0, 0, 0, 0, 0],
                          jnp.float32)]
     for seed in seeds:
-        rc = process_slice(ev, MotionModel.zero(), mk(False),
-                           SensorConfig(24, 32), seed=seed)
-        rm = process_slice(ev, MotionModel.zero(), mk(True),
-                           SensorConfig(24, 32), seed=seed)
-        assert int(rm.iters) == int(rc.iters), (int(rm.iters),
-                                                int(rc.iters))
-        for f in ("total_dx", "total_dy", "total_rot", "total_div"):
-            a = float(getattr(rc.model, f))
-            b = float(getattr(rm.model, f))
-            assert abs(a - b) <= 1e-4 * max(1.0, abs(a)), (f, a, b)
+        plain = process_slice(ev, MotionModel.zero(), mk(0.0),
+                              SensorConfig(24, 32), seed=seed)
+        pred = process_slice(ev, MotionModel.zero(), mk(4.0),
+                             SensorConfig(24, 32), seed=seed)
+        assert int(pred.iters) <= int(plain.iters), (int(pred.iters),
+                                                     int(plain.iters))
+        opt = mk(4.0)
+        for f, tol in (("total_dx", opt.dx_tol), ("total_dy", opt.dy_tol),
+                       ("total_rot", opt.rot_tol),
+                       ("total_div", opt.div_tol)):
+            a = float(getattr(plain.model, f))
+            b = float(getattr(pred.model, f))
+            assert abs(a - b) <= 8 * tol, (f, a, b)
     # (b) never more iterations than the plain fast exit.
     d2 = synthetic_events(24000, duration_s=0.4, res_x=24, res_y=32,
                           n_points=80, seed=7, vx=6.0, vy=-4.0, rot=0.1,
@@ -270,126 +231,6 @@ def test_predicted_exit_parity_and_effect():
                                       exit_predict_cap=4.0)))
     assert int(pred["iters"].sum()) <= int(plain["iters"].sum()), (
         int(pred["iters"].sum()), int(plain["iters"].sum()))
-
-
-def test_megastep_split_matches_monolithic_slice():
-    """The production fast presets now default to megastep_split=True (the
-    single-device iteration as the sharded path's two kernels, no psum) —
-    measured bit-exact vs the monolithic megastep on the real chip, both
-    schedules.  Pin the same property in interpret mode on CPU for the
-    split AND the merged (megastep2) variants: identical iteration counts
-    and per-event outputs."""
-    from better_flow_tpu.core.events import make_slice
-    from better_flow_tpu.core.model import MotionModel
-    from better_flow_tpu.models.global_flow import process_slice
-
-    d = synthetic_events(3000, duration_s=0.1, res_x=24, res_y=32,
-                         n_points=60, seed=3, vx=8.0, vy=-5.0, rot=0.05,
-                         div=0.02)
-    ev = make_slice(d["x"], d["y"], d["t_ns"].astype(np.float64),
-                    capacity=3072)
-    for sched in ("fast", "reference"):
-        mk = lambda **kw: (
-            OptimizerConfig.fast(scale=3, min_events=500,
-                                 scatter_mode="pallas", **kw)
-            if sched == "fast" else
-            OptimizerConfig(scale=3, min_events=500, scatter_mode="pallas",
-                            **kw))
-        mono = process_slice(ev, MotionModel.zero(),
-                             mk(megastep_split=False),
-                             SensorConfig(24, 32))
-        split = process_slice(ev, MotionModel.zero(),
-                              mk(megastep_split=True),
-                              SensorConfig(24, 32))
-        merged = process_slice(ev, MotionModel.zero(),
-                               mk(megastep_merged=True),
-                               SensorConfig(24, 32))
-        unrolled = process_slice(ev, MotionModel.zero(),
-                                 mk(megastep_split=True,
-                                    megastep_unroll=2),
-                                 SensorConfig(24, 32))
-        assert int(unrolled.iters) == int(mono.iters), sched
-        np.testing.assert_array_equal(np.asarray(unrolled.u),
-                                      np.asarray(split.u), err_msg=sched)
-        assert int(split.iters) == int(mono.iters), sched
-        np.testing.assert_array_equal(np.asarray(split.u),
-                                      np.asarray(mono.u), err_msg=sched)
-        np.testing.assert_array_equal(np.asarray(split.v),
-                                      np.asarray(mono.v), err_msg=sched)
-        # The merged kernel computes the final nx/ny in a different
-        # compilation than warp_uv; Mosaic contracts the 3-term rot/div
-        # expression differently there (documented ulp-level behavior),
-        # so the merged gate is iteration-exact + ulp-tolerant.
-        assert int(merged.iters) == int(mono.iters), sched
-        np.testing.assert_allclose(np.asarray(merged.u),
-                                   np.asarray(mono.u), rtol=1e-5,
-                                   atol=1e-4, err_msg=sched)
-        np.testing.assert_allclose(np.asarray(merged.v),
-                                   np.asarray(mono.v), rtol=1e-5,
-                                   atol=1e-4, err_msg=sched)
-
-
-def test_megastep_fast_matches_composed_recording():
-    """Recording-level statistical equivalence of the two schedule copies
-    (same Pallas splat, hi+lo pair): per-slice iteration counts differ
-    occasionally (ulp-amplification through warm-start chains — the same
-    mechanism documented for sharded parity), but a LOGIC drift in either
-    copy (trust region, divider doubling, exit predicate, seed carry)
-    shifts the iteration total and accuracy far beyond these bands."""
-    d = synthetic_events(24000, duration_s=0.4, res_x=24, res_y=32,
-                         n_points=80, seed=7, vx=6.0, vy=-4.0, rot=0.1,
-                         div=0.04)
-    mk = lambda mega: _cfg("fast", scatter_mode="pallas",
-                           splat_time_lo=True, use_megastep=mega,
-                           dx_tol=1e-4, dy_tol=1e-4, rot_tol=1e-3,
-                           div_tol=1.0, exit_grad_factor=1.0)
-    comp = compensate_recording_scan(d["x"], d["y"], d["t_ns"], mk(False))
-    mega = compensate_recording_scan(d["x"], d["y"], d["t_ns"], mk(True))
-    np.testing.assert_array_equal(mega["noise"], comp["noise"])
-    it_m = int(mega["iters"].sum())
-    it_c = int(comp["iters"].sum())
-    assert 0.75 * it_c <= it_m <= 1.33 * it_c, (it_m, it_c)
-
-    def aee(out):
-        m = ~out["noise"]
-        return float(np.median(
-            np.hypot(out["u"][m] - d["u"][m], out["v"][m] - d["v"][m])))
-
-    assert aee(mega) <= 1.05 * aee(comp), (aee(mega), aee(comp))
-
-
-def test_fast_2row_splat_quality_pallas():
-    """The bench preset's splat_time_lo=False (2-row bf16 splat) only takes
-    effect on the Pallas megastep path — gate it there (interpret mode on
-    CPU): against the hi+lo pair the converged flow must agree to well
-    below the flow scale and accuracy vs ground truth must not degrade.
-    The scene keeps production-like motion scale (~25 px/s) on the small
-    sensor so the time gradients are meaningful; at crawl speeds the AEE
-    is noise-dominated and gates nothing."""
-    d = synthetic_events(24000, duration_s=0.4, res_x=24, res_y=32,
-                         n_points=80, seed=9, vx=20.0, vy=-15.0, rot=0.1,
-                         div=0.04)
-    mk = lambda lo: _cfg("fast", scatter_mode="pallas", splat_time_lo=lo)
-    hi_lo = compensate_recording_scan(d["x"], d["y"], d["t_ns"], mk(True))
-    two = compensate_recording_scan(d["x"], d["y"], d["t_ns"], mk(False))
-    ok = ~(hi_lo["noise"] | two["noise"])
-    speed = float(np.hypot(hi_lo["u"][ok], hi_lo["v"][ok]).mean())
-    # Flow deviation bound: on this deliberately adversarial regime (tiny
-    # 24x32 windows, 0.4 s of bf16-quantized time, slow ~7 px/s motion —
-    # the relative time-quantization error is ~10x the production
-    # stream's) the pair-vs-2-row median deviation measures ~2-3% of mean
-    # speed; the accuracy gates below are the real quality bar.
-    assert np.median(np.abs(two["u"][ok] - hi_lo["u"][ok])) < 0.05 * speed
-    assert np.median(np.abs(two["v"][ok] - hi_lo["v"][ok])) < 0.05 * speed
-
-    def aee(out):
-        m = ~out["noise"]
-        return float(np.median(
-            np.hypot(out["u"][m] - d["u"][m], out["v"][m] - d["v"][m])))
-
-    assert aee(two) <= 1.05 * aee(hi_lo), (aee(two), aee(hi_lo))
-    # bf16 time quantization must not change convergence behaviour much
-    assert two["iters"].sum() <= 1.2 * hi_lo["iters"].sum()
 
 
 def test_fast_degenerate_and_gates_identical():

@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from better_flow_tpu.config import NZ, OptimizerConfig, SensorConfig, UV_FACTOR
-from better_flow_tpu.core.events import make_slice
-from better_flow_tpu.core.model import MotionModel
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models.global_flow import (
+from better_flow.config import NZ, OptimizerConfig, SensorConfig, UV_FACTOR
+from better_flow.core.events import make_slice
+from better_flow.core.model import MotionModel
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models.global_flow import (
     final_time_image,
     process_slice,
     slice_geometry,
 )
-from better_flow_tpu.ops.reductions import nonzero_average
+from better_flow.ops.reductions import nonzero_average
 
 import naive_ref
 

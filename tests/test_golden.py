@@ -22,8 +22,8 @@ pytestmark = pytest.mark.skipif(
 
 
 def _make_golden(tmp, scene):
-    from better_flow_tpu.io.event_file import write_events
-    from better_flow_tpu.io.synthetic import synthetic_events
+    from better_flow.io.event_file import write_events
+    from better_flow.io.synthetic import synthetic_events
 
     d = synthetic_events(60_000, duration_s=0.4, res_x=180, res_y=240,
                          n_points=400, seed=21, **scene)
@@ -56,9 +56,9 @@ def golden_rotdiv(tmp_path_factory):
 
 
 def test_flow_matches_reference(golden):
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     rec = read_events(golden["rec"])
     ref = read_events_uv(golden["ref_out"])
@@ -82,9 +82,9 @@ def test_fast_flow_matches_reference_binary(golden):
     golden (the preset converges to the same optimum within its relaxed
     2e-4 px warp tolerance; reference-schedule-vs-binary already carries
     ~2% median deviation)."""
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import OptimizerConfig, PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     rec = read_events(golden["rec"])
     ref = read_events_uv(golden["ref_out"])
@@ -108,9 +108,9 @@ def test_fast_noisy_flow_matches_reference_binary(golden_noisy):
     parity mode only).  This single gate is what caught the
     exit_grad_factor=8 quality cliff in round 3 (one bursty slice exited
     early and the warm-start chain diverged, corr 0.9986 -> 0.48)."""
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import OptimizerConfig, PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     rec = read_events(golden_noisy["rec"])
     ref = read_events_uv(golden_noisy["ref_out"])
@@ -139,9 +139,9 @@ def test_fast_noisy_margin_canary(golden_noisy):
     the current headroom over the production gate): a schedule change
     that erodes chain fidelity fails HERE, before it falls off the same
     cliff round 2's preset did.  Margin numbers are printed."""
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import OptimizerConfig, PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     rec = read_events(golden_noisy["rec"])
     ref = read_events_uv(golden_noisy["ref_out"])
@@ -164,8 +164,8 @@ def golden_noisy2(tmp_path_factory):
     """Second sensor-realistic stream with a different seed and burstier
     statistics — cliff regressions in the fast exit are chain-chaotic and
     scene-dependent, so one noisy seed is thin protection."""
-    from better_flow_tpu.io.dvs_sim import dvs_events
-    from better_flow_tpu.io.event_file import write_events
+    from better_flow.io.dvs_sim import dvs_events
+    from better_flow.io.event_file import write_events
 
     tmp = tmp_path_factory.mktemp("golden_noisy2")
     d = dvs_events(70_000, duration_s=0.35, res_x=180, res_y=240,
@@ -185,9 +185,9 @@ def test_fast_noisy_flow_matches_reference_binary_seed2(golden_noisy2):
     """The fast preset must track the C++ binary on a SECOND noisy stream
     (different seed, burstier) — redundancy for the chain-divergence
     failure mode."""
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import OptimizerConfig, PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     rec = read_events(golden_noisy2["rec"])
     ref = read_events_uv(golden_noisy2["ref_out"])
@@ -206,11 +206,11 @@ def test_fast_noisy_flow_matches_reference_binary_seed2(golden_noisy2):
 def test_compensated_image_psnr(golden):
     """Compensated count images from both flows must agree (PSNR gate) and
     both must be sharper than the uncompensated image."""
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.eval.metrics import psnr
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
-    from better_flow_tpu.viz.images import projection_img
+    from better_flow.config import PipelineConfig
+    from better_flow.eval.metrics import psnr
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.viz.images import projection_img
 
     rec = read_events(golden["rec"])
     ref = read_events_uv(golden["ref_out"])
@@ -247,13 +247,13 @@ def test_rotdiv_flow_matches_reference(golden_rotdiv):
     slices before any bifurcation, and (b) compensated-image sharpness
     within tolerance of the reference over the whole recording — the
     BASELINE.md sharpness criterion."""
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.config import PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_scan,
         plan_slices,
     )
-    from better_flow_tpu.viz.images import projection_img
+    from better_flow.viz.images import projection_img
 
     cfg = PipelineConfig()
     rec = read_events(golden_rotdiv["rec"])
@@ -289,8 +289,8 @@ def golden_noisy(tmp_path_factory):
     recordings cannot be fetched in this zero-egress environment
     (bf_viewer.cpp:632-640 names the dataset family); this is the in-repo
     stand-in with the same defect statistics."""
-    from better_flow_tpu.io.dvs_sim import dvs_events
-    from better_flow_tpu.io.event_file import write_events
+    from better_flow.io.dvs_sim import dvs_events
+    from better_flow.io.event_file import write_events
 
     tmp = tmp_path_factory.mktemp("golden_noisy")
     d = dvs_events(80_000, duration_s=0.4, res_x=180, res_y=240,
@@ -309,9 +309,9 @@ def test_noisy_flow_matches_reference(golden_noisy):
     """Parity holds on sensor-realistic data, not just clean streams: the
     per-event flow must track the C++ binary through FPN, BA noise, and
     bursty slice occupancy."""
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.config import PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     rec = read_events(golden_noisy["rec"])
     ref = read_events_uv(golden_noisy["ref_out"])
@@ -340,9 +340,9 @@ def test_rotdiv_flow_f64_totals(golden_rotdiv):
     apply_project.)"""
     from jax import enable_x64
 
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.io.event_file import read_events, read_events_uv
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.config import PipelineConfig
+    from better_flow.io.event_file import read_events, read_events_uv
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_scan,
         plan_slices,
     )

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from better_flow_tpu.ops.gradient import gradient_img_fuse, lr_sobel, masked_scharr
+from better_flow.ops.gradient import gradient_img_fuse, lr_sobel, masked_scharr
 
 import naive_ref
 

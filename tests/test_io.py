@@ -5,8 +5,8 @@ import io
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import NZ, UV_FACTOR
-from better_flow_tpu.io.event_file import (
+from better_flow.config import NZ, UV_FACTOR
+from better_flow.io.event_file import (
     read_events,
     read_events_uv,
     write_events,

@@ -4,15 +4,15 @@ import threading
 
 import numpy as np
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io.stream import EventPublisher, EventSubscriber, pack_events
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime.live import EventVisualizer, LagMonitor, point_cloud
+from better_flow.io.stream import EventPublisher, EventSubscriber, pack_events
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.live import EventVisualizer, LagMonitor, point_cloud
 
 
 def test_lag_monitor_resets_on_time_jump():

@@ -4,16 +4,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models.local_flow import (
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models.local_flow import (
     LocalWindow,
     flow_field_grid,
     gather_windows,
     local_flow_field,
     gaussian_kernel_1d,
 )
-from better_flow_tpu.models.score_search import compute_flow_bruteforce
-from better_flow_tpu.config import NZ, UV_FACTOR
+from better_flow.models.score_search import compute_flow_bruteforce
+from better_flow.config import NZ, UV_FACTOR
 
 
 def test_gaussian_kernel_matches_opencv():

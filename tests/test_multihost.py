@@ -10,9 +10,9 @@ full-recording scan without spawning processes.
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime.scan_pipeline import (
+from better_flow.config import OptimizerConfig, PipelineConfig
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.scan_pipeline import (
     compensate_recording_scan,
     plan_slices,
     prepare_recording,
@@ -118,7 +118,7 @@ def test_boundary_noise_history(rec):
 
 def test_multihost_single_process_fallback(rec):
     """compensate_recording_multihost with one process = the plain scan."""
-    from better_flow_tpu.parallel.multihost import (
+    from better_flow.parallel.multihost import (
         compensate_recording_multihost,
     )
 
@@ -136,7 +136,7 @@ def test_cold_pipeline_matches_scan(rec):
     """compensate_recording_cold (batch-pipelined staging/execution
     overlap) is bit-identical to the one-program scan — it is the range
     chain at n_batch granularity with deferred fetches."""
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_cold,
     )
 

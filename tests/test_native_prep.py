@@ -9,17 +9,17 @@ slice-local times.
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io import native
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.ops.pallas.fused_model import CHUNK
-from better_flow_tpu.runtime.scan_pipeline import (
+from better_flow.io import native
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.scan_pipeline import (
     BAND_ROWS,
+    CHUNK,
     PERM_SENTINEL,
     materialize_slices,
     plan_slices,

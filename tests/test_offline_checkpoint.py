@@ -10,10 +10,10 @@ save_offline_checkpoint)."""
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime import scan_pipeline
-from better_flow_tpu.runtime.scan_pipeline import (
+from better_flow.config import OptimizerConfig, PipelineConfig
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime import scan_pipeline
+from better_flow.runtime.scan_pipeline import (
     compensate_recording_cold,
     compensate_recording_scan,
 )
@@ -178,7 +178,7 @@ def test_pack_unpack_roundtrip():
     f16 cast, noise bit-exact, odd (non-multiple-of-8) lengths."""
     import jax.numpy as jnp
 
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.runtime.scan_pipeline import (
         _pack_results, _unpack_results)
 
     rng = np.random.default_rng(1)

@@ -5,16 +5,16 @@ import numpy as np
 import jax
 import pytest
 
-from better_flow_tpu.config import OptimizerConfig, SensorConfig
-from better_flow_tpu.core.events import make_slice
-from better_flow_tpu.core.model import MotionModel
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models.global_flow import process_slice
-from better_flow_tpu.parallel.event_parallel import (
+from better_flow.config import OptimizerConfig, SensorConfig
+from better_flow.core.events import make_slice
+from better_flow.core.model import MotionModel
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models.global_flow import process_slice
+from better_flow.parallel.event_parallel import (
     jit_event_parallel,
     process_slice_event_parallel,
 )
-from better_flow_tpu.parallel.mesh import make_event_mesh
+from better_flow.parallel.mesh import make_event_mesh
 
 SMALL = SensorConfig(24, 32)
 

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from better_flow_tpu.core.pixel_map import PixelEventMap
-from better_flow_tpu.viz.images import color_clusters_img
+from better_flow.core.pixel_map import PixelEventMap
+from better_flow.viz.images import color_clusters_img
 
 
 class TestPixelMap:

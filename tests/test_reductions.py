@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from better_flow_tpu.ops.gradient import masked_scharr
-from better_flow_tpu.ops.reductions import (
+from better_flow.ops.gradient import masked_scharr
+from better_flow.ops.reductions import (
     center_of_mass,
     model_compute,
     model_compute_partial,

@@ -3,17 +3,17 @@
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime.accumulate import merge_slices
-from better_flow_tpu.runtime.dvs_flow import DVSFlow
-from better_flow_tpu.runtime.offline import compensate_recording
-from better_flow_tpu.runtime.slice_buffer import EventRingBuffer
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.accumulate import merge_slices
+from better_flow.runtime.dvs_flow import DVSFlow
+from better_flow.runtime.offline import compensate_recording
+from better_flow.runtime.slice_buffer import EventRingBuffer
 
 SMALL = SensorConfig(res_x=24, res_y=32)
 

@@ -2,15 +2,15 @@
 
 import numpy as np
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.runtime.offline import compensate_recording
-from better_flow_tpu.runtime.scan_pipeline import (
+from better_flow.io.synthetic import synthetic_events
+from better_flow.runtime.offline import compensate_recording
+from better_flow.runtime.scan_pipeline import (
     compensate_recording_scan,
     plan_slices,
 )
@@ -123,9 +123,9 @@ def test_empty_and_tiny_recordings():
     """Degenerate inputs through both offline entry points: an empty
     recording produces zero slices without crashing; a sub-slice recording
     produces its flush slice (bf_motion_compensator.cpp:208)."""
-    from better_flow_tpu.config import (OptimizerConfig, PipelineConfig,
+    from better_flow.config import (OptimizerConfig, PipelineConfig,
                                         SensorConfig, SliceConfig)
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_cold,
         compensate_recording_scan,
     )
@@ -160,12 +160,12 @@ def test_range_scan_gate_history_nondefault_fraction():
     gate at fraction 6 but not at 15 is split at a range boundary; the
     range scan seeded from the host history must reproduce the full
     scan's noise flags exactly."""
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.runtime.scan_pipeline import (
         make_carry,
         plan_slices,
         prepare_recording,
     )
-    from better_flow_tpu.core.model import MotionModel
+    from better_flow.core.model import MotionModel
 
     rng = np.random.default_rng(7)
     n = 12_000
@@ -199,87 +199,16 @@ def test_range_scan_gate_history_nondefault_fraction():
     np.testing.assert_array_equal(stitched, full["noise"])
 
 
-def test_act_kernel_matches_xla_chain():
-    """Round-5: the fused path builds its activity rows in one pallas pass
-    (act_rows_call: valid + window-gate noise history + f32 pack).  Force
-    the pallas path (interpret mode on CPU) on a stream whose gate fires
-    mid-recording and compare against the XLA path — noise flags, flow and
-    iteration counts must agree (the two compute identical activity)."""
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-
-    rng = np.random.default_rng(3)
-
-    def phase(n, t0, gen):
-        t = np.sort(rng.integers(0, int(0.15e9), n)) + t0
-        x, y = gen(n)
-        return x.astype(np.float64), y.astype(np.float64), t
-
-    healthy = lambda n: (rng.integers(0, 24, n), rng.integers(0, 32, n))
-    point = lambda n: (np.full(n, 7), np.full(n, 9))
-    xs, ys, ts = zip(
-        phase(3000, 0, healthy),
-        phase(3000, int(0.15e9), point),
-        phase(3000, int(0.30e9), healthy),
-    )
-    x = np.concatenate(xs)
-    y = np.concatenate(ys)
-    t_ns = np.concatenate(ts).astype(np.int64)
-
-    base = small_cfg()
-    mk = lambda mode: PipelineConfig(
-        sensor=base.sensor, slice=base.slice,
-        optimizer=OptimizerConfig(
-            scale=3, min_events=500, scatter_mode=mode))
-    xla = compensate_recording_scan(x, y, t_ns, mk("xla"))
-    pal = compensate_recording_scan(x, y, t_ns, mk("pallas"))
-    assert pal["noise"].any() and not pal["noise"].all()
-    # The act kernel feeds BOTH the optimization (activity rows) and the
-    # noise output (uvn row 2) on the fused path; exact agreement with
-    # the XLA chain's noise flags pins the reconstruction end to end.
-    np.testing.assert_array_equal(xla["noise"], pal["noise"])
-    # Flow on this structureless random scene is chaotic between the
-    # pallas and XLA pipelines (pre-existing ulp-level divergence through
-    # warm-start chains — models/global_flow._run_fused); the act-kernel
-    # change itself is pinned BIT-identical within the pallas pipeline by
-    # the unit test below and verified by a monkeypatched XLA-act
-    # substitution (round-5 notes).
-
-
-def test_act_rows_bit_identical_to_pack_act():
-    """Unit: act_rows_call must produce EXACTLY pack_act(valid & ~noise)
-    for every history configuration, including padding sentinels."""
-    import jax.numpy as jnp
-
-    from better_flow_tpu.ops.pallas.fused_model import (
-        CHUNK, act_rows_call, pack_act)
-
-    rng = np.random.default_rng(0)
-    capp = 2 * CHUNK
-    sidx = rng.integers(0, 10000, capp).astype(np.int32)
-    sidx[rng.random(capp) < 0.2] = -1          # padding slots
-    ws_h = np.array([True, False, True])
-    st_h = np.array([100, 4000, 7000], np.int32)
-    en_h = np.array([2500, 4999, 9000], np.int32)
-    got = act_rows_call(jnp.asarray(sidx), jnp.asarray(ws_h),
-                        jnp.asarray(st_h), jnp.asarray(en_h))
-    valid = sidx >= 0
-    noise = np.zeros(capp, bool)
-    for j in range(3):
-        noise |= ws_h[j] & (sidx >= st_h[j]) & (sidx <= en_h[j])
-    want = pack_act(jnp.asarray(valid & ~noise))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
 def test_scan_auto_routes_to_bounded_cold(monkeypatch):
     """Round-5 bounded-memory guard: a recording whose estimated device
     residency exceeds BF_SCAN_DEVICE_BUDGET_GB routes through the
     batch-pipelined cold path — same u/v/noise/iters as the one-program
     scan (range-chained scans are exact; tests/test_multihost.py), with
     the routing flagged in stats."""
-    from better_flow_tpu.config import (
+    from better_flow.config import (
         OptimizerConfig, PipelineConfig, SensorConfig, SliceConfig)
-    from better_flow_tpu.io.synthetic import synthetic_events
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.io.synthetic import synthetic_events
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_scan)
 
     d = synthetic_events(24000, duration_s=0.4, res_x=24, res_y=32,

@@ -1,34 +1,24 @@
-"""Event-parallel fused-Pallas path (split at the psum seam) vs XLA.
+"""Event-parallel slice processing vs the single-device path.
 
-VERDICT r1 item 2: the sharded path previously dropped to the XLA scatter
-(the exact serializing scatter the Pallas kernel exists to escape).  Now
-process_slice(..., axis_name='ev') with scatter_mode='pallas' runs the
-shard-local warp+splat kernel, psums the pre-filter images, and finishes
-with a second kernel (ops/pallas/fused_model.fused_warp_splat_images /
-finish_partials).  These tests pin that path to the XLA sharded branch on
-the virtual 8-device CPU mesh (interpret mode).
+process_slice(..., axis_name='ev') splats each shard's events, psums the
+pre-filter images over the event axis and runs the image-space finish and
+the model update replicated on every shard.  These tests pin that path to
+the unsharded program on the virtual 8-device CPU mesh.
 """
-
-import dataclasses
 
 import jax
 import numpy as np
 import pytest
 
-from better_flow_tpu.config import (
-    OptimizerConfig,
-    PipelineConfig,
-    SensorConfig,
-    SliceConfig,
-)
-from better_flow_tpu.core.events import make_slice
-from better_flow_tpu.core.model import MotionModel
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.models.global_flow import process_slice
-from better_flow_tpu.parallel.event_parallel import (
+from better_flow.config import OptimizerConfig, SensorConfig
+from better_flow.core.events import make_slice
+from better_flow.core.model import MotionModel
+from better_flow.io.synthetic import synthetic_events
+from better_flow.models.global_flow import process_slice
+from better_flow.parallel.event_parallel import (
     process_slice_event_parallel,
 )
-from better_flow_tpu.parallel.mesh import make_event_mesh
+from better_flow.parallel.mesh import make_event_mesh
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 
@@ -43,20 +33,18 @@ def _slice(cap=2048, seed=0):
 
 
 @needs_8
-def test_sharded_pallas_matches_sharded_xla():
-    """Same mesh, same sharding — only the scatter engine differs."""
-    ev = _slice()
+@pytest.mark.parametrize("sched", ["reference", "fast"])
+def test_sharded_matches_single_device(sched):
+    """8-way event sharding reproduces the unsharded program: the psum'd
+    images equal the single-device splat up to the order of the sums."""
+    ev = _slice(seed=3)
     mesh = make_event_mesh(8)
-    cfg_x = OptimizerConfig(scale=3, max_iter=6, min_events=100,
-                            scatter_mode="xla")
-    cfg_p = dataclasses.replace(cfg_x, scatter_mode="pallas")
-    ref = process_slice_event_parallel(ev, MotionModel.zero(), cfg_x, SMALL,
+    cfg = OptimizerConfig(scale=3, max_iter=6, min_events=100,
+                          schedule=sched)
+    ref = process_slice(ev, MotionModel.zero(), cfg, SMALL)
+    out = process_slice_event_parallel(ev, MotionModel.zero(), cfg, SMALL,
                                        mesh)
-    # off-TPU the kernels auto-run in the generic pallas interpreter, which
-    # composes with shard_map (fused_model._interp)
-    out = process_slice_event_parallel(ev, MotionModel.zero(), cfg_p,
-                                       SMALL, mesh)
-    assert int(out.iters) == int(ref.iters)
+    assert int(out.iters) == int(ref.iters), sched
     np.testing.assert_allclose(float(out.model.total_dx),
                                float(ref.model.total_dx),
                                rtol=1e-4, atol=1e-6)
@@ -70,26 +58,19 @@ def test_sharded_pallas_matches_sharded_xla():
 
 
 def test_sharded_one_device_parity_bound():
-    """Round-2 verdict weak #3: sharded-vs-single was 0.9994 correlation on
-    the real chip while docstrings claimed identical f32 op order.  Root
-    cause (measured, tools/dbg in round 3): XLA contracts the 3-term
-    rot/div gradient expressions context-dependently between compiled
-    programs — the megastep computes finish+update in its final grid step,
-    the sharded path in a separate finish kernel after the psum, and the
-    two programs round differently at the ulp level (identical splat
-    images, dx/dy bit-equal, rot/div g <= 7 ulps apart per iteration).
-    Warm-start chains then amplify the ulps.  This test pins the per-slice
-    bound at a 1-device mesh (where the psum is an exact no-op, isolating
-    the compilation-context effect): iteration counts must match and the
-    per-event flow must agree to 1e-3 px/s absolute after a full
-    optimization — far below anything physical, and tight enough that a
-    REAL op-order divergence (wrong seam placement, missing psum term)
-    fails immediately."""
+    """At a 1-device mesh the psum is an exact no-op, so the sharded and
+    the plain program differ only in compilation context: XLA may contract
+    the 3-term rot/div gradient expressions differently in the two
+    programs, and warm-start chains amplify those ulps.  The per-slice
+    bound: iteration counts match and the per-event flow agrees to 1e-3
+    px/s absolute after a full optimization — far below anything
+    physical, and tight enough that a REAL op-order divergence (a missing
+    psum term, a wrong seam) fails immediately."""
     ev = _slice(seed=3)
     mesh = make_event_mesh(1)
     for sched in ("reference", "fast"):
         cfg = OptimizerConfig(scale=3, max_iter=6, min_events=100,
-                              scatter_mode="pallas", schedule=sched)
+                              schedule=sched)
         single = process_slice(ev, MotionModel.zero(), cfg, SMALL)
         shard = process_slice_event_parallel(ev, MotionModel.zero(), cfg,
                                              SMALL, mesh)
@@ -104,19 +85,3 @@ def test_sharded_one_device_parity_bound():
             a = float(getattr(single.model, f))
             b = float(getattr(shard.model, f))
             assert abs(a - b) <= 1e-5 + 1e-3 * abs(a), (sched, f, a, b)
-
-
-@needs_8
-def test_sharded_pallas_matches_single_device():
-    """The sharded fused path reproduces the unsharded XLA reference."""
-    ev = _slice(seed=3)
-    mesh = make_event_mesh(8)
-    cfg_x = OptimizerConfig(scale=3, max_iter=6, min_events=100,
-                            scatter_mode="xla")
-    cfg_p = dataclasses.replace(cfg_x, scatter_mode="pallas")
-    ref = process_slice(ev, MotionModel.zero(), cfg_x, SMALL)
-    out = process_slice_event_parallel(ev, MotionModel.zero(), cfg_p,
-                                       SMALL, mesh)
-    assert int(out.iters) == int(ref.iters)
-    np.testing.assert_allclose(np.asarray(out.u), np.asarray(ref.u),
-                               rtol=1e-3, atol=1e-2)

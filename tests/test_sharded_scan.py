@@ -4,16 +4,16 @@ import numpy as np
 import jax
 import pytest
 
-from better_flow_tpu.config import (
+from better_flow.config import (
     OptimizerConfig,
     PipelineConfig,
     SensorConfig,
     SliceConfig,
 )
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.parallel.event_parallel import compensate_recording_scan_sharded
-from better_flow_tpu.parallel.mesh import make_event_mesh
-from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+from better_flow.io.synthetic import synthetic_events
+from better_flow.parallel.event_parallel import compensate_recording_scan_sharded
+from better_flow.parallel.mesh import make_event_mesh
+from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 

@@ -2,13 +2,12 @@
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 
-from better_flow_tpu.config import OptimizerConfig, SensorConfig
-from better_flow_tpu.core.model import MotionModel
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.parallel.spatial import (
+from better_flow.config import OptimizerConfig, SensorConfig
+from better_flow.core.model import MotionModel
+from better_flow.io.synthetic import synthetic_events
+from better_flow.parallel.spatial import (
     bucket_events,
     bucket_events_2d,
     process_slice_tiled,
@@ -164,9 +163,9 @@ def test_tiled_recording_pipeline_matches_untiled():
     warm-start carry over a tiled megapixel-class sensor — must match the
     untiled scan.  720x1280 sensor on the 4x2 tile mesh, scale 1 (the
     low-latency megapixel regime), zero escape-lane drops."""
-    from better_flow_tpu.config import PipelineConfig, SliceConfig
-    from better_flow_tpu.parallel.spatial import compensate_recording_tiled
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.config import PipelineConfig, SliceConfig
+    from better_flow.parallel.spatial import compensate_recording_tiled
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_scan,
     )
 
@@ -210,9 +209,9 @@ def test_tiled_recording_pipeline_gates_and_noise():
     """Degenerate mid-recording segment: the tiled pipeline must fire the
     same window gate, mark the same events noise, and keep processing
     after it (warm-start chain through a gated slice)."""
-    from better_flow_tpu.config import PipelineConfig, SliceConfig
-    from better_flow_tpu.parallel.spatial import compensate_recording_tiled
-    from better_flow_tpu.runtime.scan_pipeline import (
+    from better_flow.config import PipelineConfig, SliceConfig
+    from better_flow.parallel.spatial import compensate_recording_tiled
+    from better_flow.runtime.scan_pipeline import (
         compensate_recording_scan,
     )
 
@@ -250,8 +249,8 @@ def test_tiled_recording_pipeline_fast_schedule():
     _drive_loop as the untiled scan (seed carry included): both schedules
     must land on the same converged flow, the fast one in fewer
     iterations."""
-    from better_flow_tpu.config import PipelineConfig, SliceConfig
-    from better_flow_tpu.parallel.spatial import compensate_recording_tiled
+    from better_flow.config import PipelineConfig, SliceConfig
+    from better_flow.parallel.spatial import compensate_recording_tiled
 
     base = dict(
         sensor=SensorConfig(720, 1280),
@@ -280,75 +279,3 @@ def test_tiled_recording_pipeline_fast_schedule():
     assert np.median(np.abs(fast["v"][ok] - ref["v"][ok])) < 0.02 * speed
     assert fast["iters"].sum() < ref["iters"].sum(), (
         int(fast["iters"].sum()), int(ref["iters"].sum()))
-
-
-def test_splat_local_call_matches_scatter():
-    """Unit (round-5): the tiled path's Pallas local splat — counts EXACT,
-    time sums to the hi+lo bf16 pair's ~1e-6 s, identical for sorted
-    (windowed fast path) and unsorted (full-joint fallback) input."""
-    from better_flow_tpu.ops.pallas.fused_model import splat_local_call
-
-    rng = np.random.default_rng(0)
-    n, H, W = 5000, 250, 300
-    lx = rng.integers(-1, H, n).astype(np.float32)
-    ly = rng.integers(0, W, n).astype(np.float32)
-    ly[lx < 0] = -1
-    t = rng.random(n).astype(np.float32) * 0.2
-    ok = lx >= 0
-    lin = (lx[ok] * W + ly[ok]).astype(np.int64)
-    cnt_ref = np.zeros(H * W)
-    np.add.at(cnt_ref, lin, 1.0)
-    tsum_ref = np.zeros(H * W)
-    np.add.at(tsum_ref, lin, t[ok].astype(np.float64))
-    for sort in (True, False):
-        if sort:
-            o = np.lexsort((ly, lx))
-            a, b, c = lx[o], ly[o], t[o]
-        else:
-            a, b, c = lx, ly, t
-        tsum_k, cnt_k = splat_local_call(jnp.asarray(a), jnp.asarray(b),
-                                         jnp.asarray(c), H, W)
-        np.testing.assert_array_equal(np.asarray(cnt_k).ravel(), cnt_ref)
-        np.testing.assert_allclose(np.asarray(tsum_k).ravel(), tsum_ref,
-                                   atol=5e-6)
-
-
-@needs_4
-def test_tiled_recording_pallas_matches_xla():
-    """The tiled pipeline's Pallas local splat (the real-hardware path —
-    the XLA scatter it replaces measured 16 ms/iteration on v5e,
-    BASELINE.md round 5) against the XLA scatter path on the same 2x2
-    mesh: identical iteration counts, gates and noise; flow to ulp
-    level."""
-    from better_flow_tpu.config import PipelineConfig, SliceConfig
-    from better_flow_tpu.parallel.spatial import compensate_recording_tiled
-
-    d = synthetic_events(60_000, duration_s=0.15, res_x=720, res_y=1280,
-                         vx=120.0, vy=-80.0, rot=0.1, div=0.03,
-                         n_points=600, jitter_px=1.5, seed=4)
-    mesh = _tiled_mesh(2, 2)
-    outs = {}
-    for mode in ("xla", "pallas"):
-        cfg = PipelineConfig(
-            sensor=SensorConfig(720, 1280),
-            slice=SliceConfig(max_events=20_000, span_ns=int(0.07e9),
-                              refresh_events=9_000,
-                              refresh_time_ns=int(0.03e9)),
-            optimizer=OptimizerConfig(scale=1, max_iter=10,
-                                      min_events=1000,
-                                      scatter_mode=mode))
-        outs[mode] = compensate_recording_tiled(
-            d["x"], d["y"], d["t_ns"], cfg, mesh, halo=32, esc_cap=32768)
-    a, b = outs["xla"], outs["pallas"]
-    np.testing.assert_array_equal(np.asarray(a["iters"]),
-                                  np.asarray(b["iters"]))
-    np.testing.assert_array_equal(a["noise"], b["noise"])
-    assert b["stats"]["escaped_dropped"] == 0
-    ok = ~(a["noise"] | b["noise"])
-    speed = float(np.hypot(a["u"][ok], a["v"][ok]).mean())
-    assert speed > 20.0, speed   # non-vacuous (round-3 lesson)
-    du = np.abs(a["u"][ok] - b["u"][ok])
-    dv = np.abs(a["v"][ok] - b["v"][ok])
-    assert np.median(du) <= 0.001 * speed, (np.median(du), speed)
-    assert np.median(dv) <= 0.001 * speed
-    assert du.max() <= 0.05 * speed, (du.max(), speed)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from better_flow_tpu.ops.time_image import (
+from better_flow.ops.time_image import (
     box_filter,
     count_image,
     scatter_images,

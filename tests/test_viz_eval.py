@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from better_flow_tpu.eval.metrics import FlowErrors, aee, evaluate_flow, psnr, sharpness
-from better_flow_tpu.io.synthetic import synthetic_events
-from better_flow_tpu.viz.images import (
+from better_flow.eval.metrics import FlowErrors, aee, evaluate_flow, psnr, sharpness
+from better_flow.io.synthetic import synthetic_events
+from better_flow.viz.images import (
     arrow_flow_img,
     color_flow_img,
     color_gradient_img,
@@ -13,7 +13,7 @@ from better_flow_tpu.viz.images import (
     generate_color_circle,
     projection_img,
 )
-from better_flow_tpu.viz.video import f2str
+from better_flow.viz.video import f2str
 
 cv2 = pytest.importorskip("cv2")
 
@@ -125,7 +125,7 @@ def test_video_sink_writes_frames(tmp_path):
     """VideoSink + hud_frame produce a playable file (dvs_flow.h:114-129)."""
     import numpy as np
 
-    from better_flow_tpu.viz.video import VideoSink
+    from better_flow.viz.video import VideoSink
 
     path = str(tmp_path / "out.mp4")
     sink = VideoSink(path, fps=10, res_x=24, res_y=32)

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from better_flow_tpu.config import NZ, UV_FACTOR
-from better_flow_tpu.ops.warp import (
+from better_flow.config import NZ, UV_FACTOR
+from better_flow.ops.warp import (
     apply_project,
     compute_uv,
     n_from_u,
@@ -86,7 +86,7 @@ def test_reinit_overwrites_while_4param_accumulates(rng):
 def test_project_dn_increments_n(rng):
     """project_dn accumulates n += dn then re-projects from fr
     (event.h:72-76)."""
-    from better_flow_tpu.ops.warp import project_dn
+    from better_flow.ops.warp import project_dn
 
     fx = np.array([10.0]); fy = np.array([20.0]); t = np.array([1e7])
     nx0 = np.array([0.05]); ny0 = np.array([-0.02])

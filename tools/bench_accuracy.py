@@ -36,12 +36,12 @@ def main():
     p.add_argument("--div", type=float, default=0.03)
     args = p.parse_args()
 
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.eval.metrics import aee, psnr
-    from better_flow_tpu.io.event_file import read_events, read_events_uv, write_events
-    from better_flow_tpu.io.synthetic import synthetic_events
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
-    from better_flow_tpu.viz.images import projection_img
+    from better_flow.config import PipelineConfig
+    from better_flow.eval.metrics import aee, psnr
+    from better_flow.io.event_file import read_events, read_events_uv, write_events
+    from better_flow.io.synthetic import synthetic_events
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.viz.images import projection_img
 
     d = synthetic_events(
         args.n_events, duration_s=0.4, res_x=180, res_y=240,
@@ -74,7 +74,7 @@ def main():
     out = compensate_recording_scan(rec["x"], rec["y"], rec["t_ns"], PipelineConfig())
     ours, img_ours = metrics(out["u"], out["v"])
     ours["mean_iters"] = round(out["stats"]["mean_iters"], 1)
-    report["better_flow_tpu"] = ours
+    report["better_flow"] = ours
 
     if os.path.exists(REF_BIN):
         ref_p = os.path.join(tmp, "ref.txt")

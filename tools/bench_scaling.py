@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Throughput scaling protocol (BASELINE.md): the same recording through
 the offline pipeline at 1 device and N devices (event-parallel sharded
-scan).  On real pods this measures ICI/DCN scaling; on a single chip it
-runs functionally on XLA's virtual host devices
+scan).  On a machine with several GPUs this measures NVLink scaling; on
+a single device it runs functionally on XLA's virtual host devices
 (JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=N).
 
     python tools/bench_scaling.py [n_events] [device_counts...]
@@ -20,13 +20,13 @@ import numpy as np
 def main():
     import jax
 
-    from better_flow_tpu.config import PipelineConfig
-    from better_flow_tpu.io.synthetic import synthetic_events
-    from better_flow_tpu.parallel.event_parallel import (
+    from better_flow.config import PipelineConfig
+    from better_flow.io.synthetic import synthetic_events
+    from better_flow.parallel.event_parallel import (
         compensate_recording_scan_sharded,
     )
-    from better_flow_tpu.parallel.mesh import make_event_mesh
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.parallel.mesh import make_event_mesh
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     args = [a for a in sys.argv[1:]]
     n_events = int(float(args[0])) if args else 200_000

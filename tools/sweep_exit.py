@@ -16,7 +16,7 @@ Scenes mirror tests/test_fast_schedule.py's gates (production, rotdiv,
 dvs_sim noisy); seeds vary the scene geometry/noise stream.  For every
 (scene, seed) the reference schedule is the AEE denominator, computed
 fresh for that seed.  Quality is platform-independent (the gates run on
-CPU); run throughput separately on TPU via bench.py.
+CPU); run throughput separately on the accelerator via bench.py.
 
     python tools/sweep_exit.py [--out /tmp/sweep.json] [--quick]
 """
@@ -31,11 +31,11 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from better_flow_tpu.config import OptimizerConfig, PipelineConfig
+from better_flow.config import OptimizerConfig, PipelineConfig
 
 
 def _scene(name, seed):
-    from better_flow_tpu.io.synthetic import synthetic_events
+    from better_flow.io.synthetic import synthetic_events
 
     if name == "production":
         return synthetic_events(200_000, duration_s=0.2, res_x=180,
@@ -46,7 +46,7 @@ def _scene(name, seed):
                                 res_y=240, vx=10.0, vy=8.0, rot=0.6,
                                 div=0.12, n_points=600, seed=seed), None
     if name == "noisy":
-        from better_flow_tpu.io.dvs_sim import dvs_events
+        from better_flow.io.dvs_sim import dvs_events
 
         d = dvs_events(120_000, duration_s=0.25, res_x=180, res_y=240,
                        vx=45.0, vy=-30.0, rot=0.1, div=0.04, seed=seed)
@@ -78,7 +78,7 @@ def main():
                    help="comma list, e.g. fast,delta1.2,pred2")
     args = p.parse_args()
 
-    from better_flow_tpu.runtime.scan_pipeline import compensate_recording_scan
+    from better_flow.runtime.scan_pipeline import compensate_recording_scan
 
     variants = {
         "fast": {},

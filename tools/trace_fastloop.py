@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Per-iteration internals of the fast schedule on a bench-like chain.
 
-Drives the composed (XLA) path slice by slice in EAGER mode with
+Drives the optimizer slice by slice in EAGER mode with
 BF_DEBUG_FASTLOOP so _fast_loop records (g, d, slope, dividers, totals)
 at every iteration — the dataset behind predicted-exit design decisions
 (round-5: kill the mode-4 confirmation iteration).
@@ -25,18 +25,17 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from better_flow_tpu.config import OptimizerConfig, PipelineConfig
-    from better_flow_tpu.core.events import EventSlice
-    from better_flow_tpu.io.synthetic import synthetic_events
-    from better_flow_tpu.models import global_flow
-    from better_flow_tpu.models.global_flow import process_slice
-    from better_flow_tpu.runtime.scan_pipeline import prepare_recording
+    from better_flow.config import OptimizerConfig, PipelineConfig
+    from better_flow.core.events import EventSlice
+    from better_flow.io.synthetic import synthetic_events
+    from better_flow.models import global_flow
+    from better_flow.models.global_flow import process_slice
+    from better_flow.runtime.scan_pipeline import prepare_recording
 
     d = synthetic_events(n, duration_s=n / 1e6, res_x=180, res_y=240,
                          vx=60.0, vy=-40.0, rot=0.12, div=0.05,
                          n_points=800, seed=42)
-    cfg = PipelineConfig(optimizer=OptimizerConfig.fast(
-        scatter_mode="xla", use_megastep=False, megastep_split=False))
+    cfg = PipelineConfig(optimizer=OptimizerConfig.fast())
     prep = prepare_recording(d["x"], d["y"], d["t_ns"], cfg)
     S = len(prep["plan"].ends)
     xs = np.asarray(prep["xs16"]).astype(np.float32)
@@ -49,8 +48,8 @@ def main():
     nval = np.asarray(prep["nval"])
     hist_k = prep["hist_k"]
 
-    from better_flow_tpu.core.model import MotionModel
-    from better_flow_tpu.runtime.scan_pipeline import PERM_SENTINEL
+    from better_flow.core.model import MotionModel
+    from better_flow.runtime.scan_pipeline import PERM_SENTINEL
 
     model = MotionModel.zero()
     sd = None
@@ -71,7 +70,7 @@ def main():
                             valid=jnp.asarray(valid),
                             noise=jnp.asarray(noise & valid))
             res = process_slice(ev, model, cfg.optimizer, cfg.sensor,
-                                warm_start=True, presorted=True, seed=sd,
+                                warm_start=True, seed=sd,
                                 bbox=jnp.asarray(bbox[s]),
                                 n_valid=int(nval[s]))
             tr = getattr(global_flow._fast_loop, "last_trace", None)
